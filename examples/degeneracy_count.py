@@ -6,10 +6,10 @@ LER / degeneracy comparison table the notebook plots.
 
 import numpy as np
 
-from qldpc_tpu.codes import BB_CODE_NAMES, get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+from qldpc_jax.codes import BB_CODE_NAMES, get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import EngineConfig, MonteCarloEngine, counters_to_dict
 
 
 def main(trials=2000, p=0.050119):

@@ -7,9 +7,9 @@ statistics, and decodes a batch under each — all on device.
 import jax
 import numpy as np
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig, BPDecoder
-from qldpc_tpu.noise import (
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig, BPDecoder
+from qldpc_jax.noise import (
     DEMData,
     code_capacity,
     doubled_channel,

@@ -9,10 +9,10 @@ import tempfile
 
 import numpy as np
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig, BPDecoder
-from qldpc_tpu.decoders.osd import OSDConfig, OSDDecoder
-from qldpc_tpu.utils.plotting import plot_matrix, plot_tanner_graph
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig, BPDecoder
+from qldpc_jax.decoders.osd import OSDConfig, OSDDecoder
+from qldpc_jax.utils.plotting import plot_matrix, plot_tanner_graph
 
 
 def main():

@@ -1,6 +1,6 @@
 """BP convergence sensitivity: f32 production decoder vs f64, same syndromes.
 
-Purpose (round-3 VERDICT item 7): the bp-only validation workload compares
+Purpose: the bp-only validation workload compares
 our decoder against the reference's CC-50k archives with a rel=0.25 slack on
 top of binomial bars, justified by the *argument* that BP failure rates are
 implementation-sensitive. This script replaces the argument with data: it
@@ -43,9 +43,9 @@ def main() -> None:
     ap.add_argument("--out", default="results/bp_sensitivity.json")
     args = ap.parse_args()
 
-    import qldpc_tpu
+    import qldpc_jax
 
-    qldpc_tpu.enable_compilation_cache()
+    qldpc_jax.enable_compilation_cache()
     import jax
 
     jax.config.update("jax_enable_x64", True)  # the f64 axis is the point
@@ -53,8 +53,8 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from qldpc_tpu.codes import get_code
-    from qldpc_tpu.decoders import BPConfig, BPDecoder
+    from qldpc_jax.codes import get_code
+    from qldpc_jax.decoders import BPConfig, BPDecoder
 
     P_GRID = np.logspace(-3.2, -1.3, 8)
     CLIP = 0.9999999
@@ -119,8 +119,8 @@ def main() -> None:
     for code_name in codes:
         code = get_code(code_name)
         H, Lx, n = code.Hx, code.Lx, code.n
-        # f64 decoding runs on CPU regardless of the main backend (TPU has
-        # no f64); the f32 decoder runs wherever the session's backend is
+        # f64 decoding runs on CPU regardless of the main backend; the f32
+        # decoder runs wherever the session's backend is
         cpu = jax.devices("cpu")[0]
         dec32 = BPDecoder(H, BPConfig(max_iter=50, dtype="float32"))
         dec64 = BPDecoder(H, BPConfig(max_iter=50, dtype="float64"))

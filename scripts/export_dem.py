@@ -3,12 +3,12 @@
 Reproduces the reference's stim pipeline (studies/studyComplete.py:72-84):
 build a BB-code memory experiment with a depolarizing noise model, extract
 the detector error model, convert it to (H, L, priors) matrices, and save as
-an npz bundle that ``qldpc_tpu.noise.DEMData.load`` / ``DEMEngine`` consume.
+an npz bundle that ``qldpc_jax.noise.DEMData.load`` / ``DEMEngine`` consume.
 
 Requires the optional external packages ``qldpc``, ``stim`` and ``ldpc``
 (not part of this framework's core dependencies — decoding itself never
 needs them; only this exporter does). Run on any host, copy the npz to the
-TPU job.
+machine that runs the sweep.
 
 Usage:
   python scripts/export_dem.py --code "[[72, 12, 6]]" --p 0.003 --rounds 6 \
@@ -43,8 +43,8 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from qldpc_tpu.codes.registry import BB_CODE_DEFS
-    from qldpc_tpu.noise import DEMData
+    from qldpc_jax.codes.registry import BB_CODE_DEFS
+    from qldpc_jax.noise import DEMData
 
     if args.code not in BB_CODE_DEFS:
         print(f"unknown code {args.code}", file=sys.stderr)

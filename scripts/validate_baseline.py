@@ -31,14 +31,14 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import qldpc_tpu
+import qldpc_jax
 
-qldpc_tpu.enable_compilation_cache()
+qldpc_jax.enable_compilation_cache()
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import EngineConfig, MonteCarloEngine, counters_to_dict
 
 P_GRID = np.logspace(-3.2, -1.3, 8)
 
@@ -260,8 +260,7 @@ def oracle_recheck_bp(code, p, metric, bp_kwargs, trials, seed):
     return log_or / trials
 
 
-def run(trials, batch_size, out_dir, codes, workloads=None,
-        mm_dtype="float32"):
+def run(trials, batch_size, out_dir, codes, workloads=None):
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     rows = []
@@ -277,8 +276,7 @@ def run(trials, batch_size, out_dir, codes, workloads=None,
             eng = MonteCarloEngine(
                 get_code(code_name),
                 EngineConfig(
-                    bp=BPConfig(backend="pallas", batch_tile=512,
-                                mm_dtype=mm_dtype, **w["bp"]),
+                    bp=BPConfig(**w["bp"]),
                     osd=w["osd"],
                     channel=w["channel"],
                     batch_size=batch_size,
@@ -369,11 +367,7 @@ if __name__ == "__main__":
     ap.add_argument("--codes", nargs="+", default=list(BPOSD_REF))
     ap.add_argument("--workloads", nargs="+", default=None,
                     help=f"subset of {list(WORKLOADS)}; default all")
-    ap.add_argument("--mm-dtype", default="float32",
-                    choices=["float32", "bfloat16"],
-                    help="fused-kernel MXU operand dtype (bf16 validation)")
     a = ap.parse_args()
     raise SystemExit(
-        min(run(a.trials, a.batch_size, a.out, a.codes, a.workloads,
-                mm_dtype=a.mm_dtype), 1)
+        min(run(a.trials, a.batch_size, a.out, a.codes, a.workloads), 1)
     )

@@ -1,6 +1,6 @@
 """Independent FORWARD Pauli-frame DEM oracle for tests.
 
-``qldpc_tpu.noise.circuit.circuit_to_dem`` derives fault signatures with a
+``qldpc_jax.noise.circuit.circuit_to_dem`` derives fault signatures with a
 single *backward* sensitivity pass (circuit.py:126-191). This module
 re-derives them the opposite way — per elementary fault, inject a Pauli
 frame at the fault location and propagate it FORWARD through the remaining

@@ -2,7 +2,7 @@
 
 Straightforward float64 dense implementations of textbook sum-product /
 normalized-min-sum BP and OSD, written for clarity and used to validate the
-TPU edge-list decoders. Semantics follow the reference algorithms
+batched edge-list decoders. Semantics follow the reference algorithms
 (decoding/beliefPropagation.py, rework/decoding.py, decoding/OSD.py) including
 their clipping constants and tie-breaking, so agreement here implies agreement
 with the reference.

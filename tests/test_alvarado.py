@@ -2,9 +2,9 @@ import numpy as np
 import pytest
 
 import oracles
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig, BPDecoder
-from qldpc_tpu.decoders.alvarado import estimate_alpha
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig, BPDecoder
+from qldpc_jax.decoders.alvarado import estimate_alpha
 
 
 class TestCheckMessages:

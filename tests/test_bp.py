@@ -2,8 +2,8 @@ import numpy as np
 import pytest
 
 import oracles
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig, BPDecoder
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig, BPDecoder
 
 
 def uniform_prior(n, p):

@@ -10,11 +10,11 @@ closes the studyComplete.py:88-109 loop in-repo.
 import numpy as np
 import pytest
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import DEMEngine, DEMEngineConfig
-from qldpc_tpu.noise.circuit import (
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import DEMEngine, DEMEngineConfig
+from qldpc_jax.noise.circuit import (
     Circuit,
     DepolarizingNoise,
     circuit_to_dem,
@@ -101,7 +101,7 @@ class TestForwardOracle:
 
     @staticmethod
     def _backward_mech(circ):
-        from qldpc_tpu.noise.circuit import _fault_signatures
+        from qldpc_jax.noise.circuit import _fault_signatures
 
         mech = {}
 
@@ -257,7 +257,7 @@ class TestParametricDEM:
     def test_matches_numeric_dem_exactly(self):
         """(ratios, counts) closed-form priors == XOR-convolved numeric
         priors at any p, with identical H, L and column order."""
-        from qldpc_tpu.noise.circuit import parametric_memory_dem
+        from qldpc_jax.noise.circuit import parametric_memory_dem
 
         code = get_code("steane")
         pdem = parametric_memory_dem(code, rounds=3)
@@ -270,7 +270,7 @@ class TestParametricDEM:
             )
 
     def test_save_load_roundtrip(self, tmp_path):
-        from qldpc_tpu.noise.circuit import ParametricDEM, parametric_memory_dem
+        from qldpc_jax.noise.circuit import ParametricDEM, parametric_memory_dem
 
         pdem = parametric_memory_dem(get_code("steane"), rounds=2)
         pdem.save(tmp_path / "p.npz")
@@ -284,7 +284,7 @@ class TestParametricDEM:
         sampling error (the on-device f32 closed form and the host f64
         priors differ by ULPs, so occasional threshold-adjacent Bernoulli
         draws flip — exact counter equality is not expected)."""
-        from qldpc_tpu.noise.circuit import parametric_memory_dem
+        from qldpc_jax.noise.circuit import parametric_memory_dem
 
         code = get_code("steane")
         pdem = parametric_memory_dem(code, rounds=2)
@@ -302,7 +302,7 @@ class TestParametricDEM:
             assert abs(d_param["ler"] - ler) < 5 * sigma + 0.01
 
     def test_parametric_requires_rate(self):
-        from qldpc_tpu.noise.circuit import parametric_memory_dem
+        from qldpc_jax.noise.circuit import parametric_memory_dem
 
         pdem = parametric_memory_dem(get_code("steane"), rounds=2)
         eng = DEMEngine(pdem, DEMEngineConfig(batch_size=128))

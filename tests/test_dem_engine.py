@@ -1,16 +1,16 @@
 import numpy as np
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import (
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import (
     DEMEngine,
     DEMEngineConfig,
     EngineConfig,
     MonteCarloEngine,
     counters_to_dict,
 )
-from qldpc_tpu.noise import DEMData
+from qldpc_jax.noise import DEMData
 
 
 def dicts_equal(a, b):
@@ -87,7 +87,7 @@ class TestDEMEngine:
         on a 1-device and an 8-device mesh."""
         import jax
 
-        from qldpc_tpu.parallel import make_mesh
+        from qldpc_jax.parallel import make_mesh
 
         kw = DEMEngineConfig(
             bp=BPConfig(max_iter=20), osd=OSDConfig(order=0), batch_size=128
@@ -101,7 +101,7 @@ class TestDEMEngine:
     def test_checkpoint_resume(self, tmp_path):
         """Inherited checkpoint/resume: an interrupted run completes to the
         same counters as an uninterrupted one."""
-        from qldpc_tpu.mc import CheckpointManager
+        from qldpc_jax.mc import CheckpointManager
 
         kw = DEMEngineConfig(
             bp=BPConfig(max_iter=20), osd=OSDConfig(order=0), batch_size=128

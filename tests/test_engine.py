@@ -2,16 +2,16 @@ import jax
 import numpy as np
 import pytest
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import (
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import (
     CheckpointManager,
     EngineConfig,
     MonteCarloEngine,
     counters_to_dict,
 )
-from qldpc_tpu.parallel import make_mesh
+from qldpc_jax.parallel import make_mesh
 
 
 def small_engine(code_name="[[72, 12, 6]]", **kw):
@@ -165,7 +165,7 @@ class TestEngine:
         incorrectable. Integer floor (d//2 == 1) would misclassify weight-1."""
         import jax.numpy as jnp
 
-        from qldpc_tpu.decoders.bp import BPResult
+        from qldpc_jax.decoders.bp import BPResult
 
         eng = small_engine("steane", batch_size=256)
         code = get_code("steane")
@@ -325,8 +325,8 @@ class TestTracedAlpha:
     def test_pallas_backend_rejects_traced_alpha(self):
         eng = MonteCarloEngine(
             get_code("steane"),
-            EngineConfig(bp=BPConfig(max_iter=10, backend="pallas",
-                                     batch_tile=128), batch_size=128),
+            EngineConfig(bp=BPConfig(max_iter=10, backend="pallas"),
+                         batch_size=128),
         )
         with pytest.raises(ValueError):
             eng.run_rate(0.02, trials=128, seed=0, alpha=0.8)

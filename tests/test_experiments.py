@@ -1,11 +1,12 @@
 import json
+import os
 
 import numpy as np
 import pytest
 
-from qldpc_tpu.experiments import PRESETS, ExperimentSpec, get_preset, run_experiment
-from qldpc_tpu.experiments.cli import build_parser, main as cli_main
-from qldpc_tpu.experiments.results_io import load_reference_archive, load_results, replot
+from qldpc_jax.experiments import PRESETS, ExperimentSpec, get_preset, run_experiment
+from qldpc_jax.experiments.cli import build_parser, main as cli_main
+from qldpc_jax.experiments.results_io import load_reference_archive, load_results, replot
 
 
 class TestSpec:
@@ -61,7 +62,12 @@ class TestRunAndIO:
         assert png.exists()
 
     def test_load_reference_archive(self):
-        arch = load_reference_archive("/root/reference/data/LERS.npz")
+        ref = os.environ.get("QLDPC_REFERENCE_DIR")
+        if not ref:
+            pytest.skip("the reference archives are not distributed with this "
+                        "repository; set QLDPC_REFERENCE_DIR to a checkout of "
+                        "michelebanfi/qLDPC to read its data/LERS.npz")
+        arch = load_reference_archive(os.path.join(ref, "data", "LERS.npz"))
         assert "physicalErrorRates" in arch
         assert "[[144, 12, 12]]" in arch
         assert len(arch["[[144, 12, 12]]"]["ler"]) == 8
@@ -125,8 +131,8 @@ class TestRunAndIO:
 def test_reference_format_export(tmp_path):
     """The reference's archive schema is emitted alongside our format and
     parses with the same loader that reads real reference archives."""
-    from qldpc_tpu.experiments import get_preset, run_experiment
-    from qldpc_tpu.experiments.results_io import load_reference_archive
+    from qldpc_jax.experiments import get_preset, run_experiment
+    from qldpc_jax.experiments.results_io import load_reference_archive
 
     spec = get_preset("study").replace(
         codes=["steane"], trials=64, batch_size=64,
@@ -136,3 +142,39 @@ def test_reference_format_export(tmp_path):
     arch = load_reference_archive(tmp_path / "study_reference_format.npz")
     assert list(arch["physicalErrorRates"]) == [0.02, 0.05]
     assert len(arch["steane"]["ler"]) == 2
+
+
+class TestDEMBatchLimit:
+    """The circuit-level runner sizes its lane count from the device's
+    memory limit (experiments/runners.py::dem_batch_limit)."""
+
+    @staticmethod
+    def _H():
+        H = np.zeros((432, 16000), np.uint8)
+        for r in range(432):
+            H[r, (r * 37 + np.arange(300) * 53) % 16000] = 1
+        return H
+
+    def test_no_limit_keeps_batch(self):
+        from qldpc_jax.experiments.runners import dem_batch_limit
+
+        assert dem_batch_limit(self._H(), 4096, None) == 4096
+
+    def test_large_limit_keeps_batch(self):
+        from qldpc_jax.experiments.runners import dem_batch_limit
+
+        assert dem_batch_limit(self._H(), 1024, 80 * 2**30) == 1024
+
+    def test_clamps_to_multiple_of_128(self):
+        from qldpc_jax.experiments.runners import dem_batch_limit
+
+        H = self._H()
+        lane = 432 * 300 * 6 * 4 + 16000 * 12 * 4
+        got = dem_batch_limit(H, 1 << 20, 2 * 1000 * lane)
+        assert got == 896  # 1000 lanes fit, rounded down to 128s
+        assert got % 128 == 0
+
+    def test_never_below_128(self):
+        from qldpc_jax.experiments.runners import dem_batch_limit
+
+        assert dem_batch_limit(self._H(), 4096, 1 << 20) == 128

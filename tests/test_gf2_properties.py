@@ -3,7 +3,7 @@
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from qldpc_tpu.codes import gf2
+from qldpc_jax.codes import gf2
 
 
 def matrices(max_m=24, max_n=32):
@@ -56,7 +56,7 @@ def test_solve_agrees_with_membership(args):
 @given(st.integers(0, 2**31 - 1))
 @settings(max_examples=20, deadline=None)
 def test_native_matches_numpy_rank(seed):
-    from qldpc_tpu import native
+    from qldpc_jax import native
 
     if not native.available():
         return

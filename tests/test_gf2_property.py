@@ -1,6 +1,6 @@
 """Property-based tests for the GF(2) linear-algebra kernels.
 
-The GF(2) layer (codes/gf2.py + the native C fallback in qldpc_tpu/native.py)
+The GF(2) layer (codes/gf2.py + the native C fallback in qldpc_jax/native.py)
 underpins code construction, logical-operator extraction, degeneracy
 classification, and every OSD budget (rank-sized column budgets in
 decoders/osd.py). Hypothesis hammers them with arbitrary small matrices;
@@ -10,8 +10,8 @@ invariants are textbook linear algebra, independent of any implementation.
 import numpy as np
 from hypothesis import given, settings, strategies as st
 
-from qldpc_tpu import native
-from qldpc_tpu.codes import gf2
+from qldpc_jax import native
+from qldpc_jax.codes import gf2
 
 
 @st.composite

@@ -1,12 +1,13 @@
 """Driver contract: entry() compiles and runs; dryrun_multichip works."""
 
+import os
 import sys
 
 import jax
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-import __graft_entry__
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import __graft_entry__  # noqa: E402
 
 
 def test_entry_compiles_and_runs():

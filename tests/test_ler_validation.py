@@ -9,10 +9,10 @@ lives in scripts/validate_baseline.py.
 import numpy as np
 import pytest
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig
-from qldpc_tpu.decoders.osd import OSDConfig
-from qldpc_tpu.mc import EngineConfig, MonteCarloEngine, counters_to_dict
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig
+from qldpc_jax.decoders.osd import OSDConfig
+from qldpc_jax.mc import EngineConfig, MonteCarloEngine, counters_to_dict
 
 
 def run_ler(code_name, p, trials, osd_order=0, max_iter=50, channel="code-capacity"):

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 import oracles
-from qldpc_tpu import native
-from qldpc_tpu.codes import get_code, gf2
+from qldpc_jax import native
+from qldpc_jax.codes import get_code, gf2
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native gf2 library not built"

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.noise import (
+from qldpc_jax.codes import get_code
+from qldpc_jax.noise import (
     DEMData,
     code_capacity,
     doubled_channel,

@@ -2,9 +2,9 @@ import numpy as np
 import pytest
 
 import oracles
-from qldpc_tpu.codes import get_code
-from qldpc_tpu.decoders import BPConfig, BPDecoder
-from qldpc_tpu.decoders.osd import OSDConfig, OSDDecoder, make_flip_patterns
+from qldpc_jax.codes import get_code
+from qldpc_jax.decoders import BPConfig, BPDecoder
+from qldpc_jax.decoders.osd import OSDConfig, OSDDecoder, make_flip_patterns
 
 
 def uniform_prior(n, p):
@@ -194,7 +194,7 @@ class TestTransformElimination:
 
 class TestParityTables:
     def test_gather_parity_equals_matmul(self, rng):
-        from qldpc_tpu.ops.tanner import parity_tables
+        from qldpc_jax.ops.tanner import parity_tables
 
         H = (rng.random((13, 57)) < 0.15).astype(np.uint8)
         vos, dcp = parity_tables(H)
